@@ -1,15 +1,17 @@
-"""lorikeet_tpu — a TPU-native strain-level metagenomic variant-analysis framework.
+"""lorikeet_tpu — a GPU-accelerated strain-level metagenomic variant-analysis framework.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of rhysnewell/Lorikeet
+A from-scratch JAX/XLA re-design of the capabilities of rhysnewell/Lorikeet
 (GATK-HaplotypeCaller-style local re-assembly variant calling plus strain-resolution
-machinery), built TPU-first:
+machinery):
 
-- Hot kernels (pair-HMM forward, Smith-Waterman scoring, band-pass activity
-  convolution, genotype-likelihood math) run as batched JAX/Pallas programs.
-- Ragged genomic work (regions, reads, haplotypes) is bucketed into static-shape
-  batches so XLA sees only static shapes.
-- Host code (BAM/FASTA/VCF I/O, graph assembly) feeds the device via padded tensors.
-- Multi-chip scaling uses jax.sharding Mesh + shard_map over region batches.
+- The pair-HMM forward runs on an NVIDIA GPU as a CUDA kernel called through
+  jax.ffi (native/pairhmm_cuda.cu), beside an exact f64 C++ host kernel;
+  lorikeet_tpu.device picks the route from the JAX backend.
+- Ragged genomic work (regions, reads, haplotypes) is bucketed into padded
+  batches so each compiled shape is reused.
+- Host code (BAM/FASTA/VCF I/O, graph assembly) feeds the device via padded arrays.
+- Several devices: pair-HMM dispatches round-robin over a jax.sharding Mesh, and
+  activity profiling shards the position axis with shard_map.
 
 Layer map mirrors the reference survey (SURVEY.md §1): utils → io → ops (kernels)
 → assembly → calling → strain → cli.

@@ -87,10 +87,9 @@ class CallerConfig:
     # variant_context_utils.rs:607-690)
     min_variant_depth_for_genotyping: int = 10
     kmer_sizes: tuple = (21, 33)
+    # pair-HMM route: True = device, False = exact f64 host kernel, None =
+    # follow the backend (calling.likelihoods.compute_pair_likelihoods)
     use_pallas: bool | None = None
-    # batch realignment SW on device (ops.sw_pallas; bit-identical to the
-    # native aligner — wins at large per-region read counts)
-    use_pallas_sw: bool = False
     max_alt_alleles: int = 6
     # mixed technologies: per-sample read type ("short" | "long"),
     # lorikeet_engine.rs ReadType + read_utils.rs:70-77 long-read filters
@@ -816,8 +815,7 @@ class HaplotypeCallerEngine:
         # haplotype-consistent coordinates
         # (assembly_based_caller_utils.rs:208, haplotype_caller_engine.rs:1348)
         from lorikeet_tpu.calling.realign import realign_reads_to_best_haplotype
-        realign_reads_to_best_haplotype(likelihoods, haplotypes, window_start,
-                                        use_pallas_sw=self.cfg.use_pallas_sw)
+        realign_reads_to_best_haplotype(likelihoods, haplotypes, window_start)
 
         start_positions = sorted({loc for ev in hap_events for loc in ev})
 

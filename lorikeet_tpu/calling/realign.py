@@ -102,14 +102,11 @@ def compose_to_reference(read_vs_hap_cigar: list, read_offset_in_hap: int,
 
 
 def realign_reads_to_best_haplotype(likelihoods, haplotypes,
-                                    window_start: int,
-                                    use_pallas_sw: bool = False) -> int:
+                                    window_start: int) -> int:
     """Replace each evidence read with a copy realigned via its best
     haplotype; returns the number of realigned reads.  `haplotypes` are
     AssembledHaplotypes whose cigars are vs the padded window at
-    ``window_start``.  With ``use_pallas_sw`` the per-read SW alignments
-    run batched on device (ops.sw_pallas, bit-identical); the native host
-    aligner stays the default — it wins below a few hundred pairs."""
+    ``window_start``."""
     n = 0
     ref_hap = next((h for h in haplotypes if h.is_ref), None)
     ref_bases = (np.frombuffer(ref_hap.bases, np.uint8)
@@ -145,17 +142,10 @@ def realign_reads_to_best_haplotype(likelihoods, haplotypes,
     if not jobs:
         return 0
 
-    if use_pallas_sw:
-        from lorikeet_tpu.ops.sw_pallas import align_batch_pallas
-        aligned = align_batch_pallas(
-            [(hap.bases, core.tobytes()) for _, _, hap, _, _, core in jobs],
-            ALIGNMENT_TO_BEST_HAPLOTYPE_SW_PARAMETERS,
-            OverhangStrategy.SOFTCLIP)
-    else:
-        aligned = [align(hap.bases, core.tobytes(),
-                         ALIGNMENT_TO_BEST_HAPLOTYPE_SW_PARAMETERS,
-                         OverhangStrategy.SOFTCLIP)
-                   for _, _, hap, _, _, core in jobs]
+    aligned = [align(hap.bases, core.tobytes(),
+                     ALIGNMENT_TO_BEST_HAPLOTYPE_SW_PARAMETERS,
+                     OverhangStrategy.SOFTCLIP)
+               for _, _, hap, _, _, core in jobs]
 
     pad_cache = {}   # hap id -> pre-padded hap-vs-ref cigar (shared by all
     #                  of that haplotype's reads; the pad is read-invariant)

@@ -19,19 +19,21 @@ Two implementations:
 
 - :func:`pairhmm_forward_np` — exact float64 host reference (conformance spec,
   validated against GATK golden data tests/resources/pairhmm-testdata.txt).
-- :func:`pairhmm_forward_batch` — batched TPU-native JAX implementation.
+- :func:`pairhmm_forward_batch` — batched plain-JAX implementation.
   Instead of translating the reference's sequential cell loop (which it itself
   flags as the bottleneck, pair_hmm.rs:569-571), it uses an anti-diagonal
   wavefront with the *lane axis = read position*: on diagonal d, cell (i, d-i)
   depends only on diagonals d-1/d-2, so every lane updates in parallel with
-  pure elementwise VPU ops + static shifts.  Per-read-row transition probs are
-  lane constants; haplotype bases stream through a shift register.  float32
-  with per-step renormalisation replaces the reference's 2^1020 float64
-  initial condition (TPUs have no fast f64).  Batch goes in the sublane axis.
+  elementwise ops + static shifts.  Per-read-row transition probs are lane
+  constants; haplotype bases stream through a shift register.  float32 with
+  per-step renormalisation replaces the reference's 2^1020 float64 initial
+  condition; suspect results escalate to float64 on the host
+  (:func:`pairhmm_forward_checked`).
+
+The hand-written device kernel (native/pairhmm_cuda.cu, dispatched by
+ops/pairhmm_device.py) keeps the same float32 contract.
 """
 from __future__ import annotations
-
-import functools
 
 import numpy as np
 import jax
@@ -110,7 +112,7 @@ def pairhmm_forward_np(
 
 
 # ---------------------------------------------------------------------------
-# Batched TPU implementation (float32, anti-diagonal wavefront)
+# Batched device implementation (float32, anti-diagonal wavefront)
 # ---------------------------------------------------------------------------
 
 def pairhmm_forward_batch(
@@ -122,34 +124,29 @@ def pairhmm_forward_batch(
     ins_quals,  # [B, Rmax] uint8
     del_quals,  # [B, Rmax] uint8
     gcps,       # [B, Rmax] uint8
-    unroll: int = 1,
 ) -> jnp.ndarray:
     """Batched forward log10-likelihoods, shape [B] float32.
 
     Wavefront over anti-diagonals d = i + j; state vectors are indexed by read
-    position i (the lane axis).  See module docstring for the layout argument.
-
-    Thin host wrapper: precomputes the lane-index masks in numpy and passes
-    them as jit *arguments* — large closure-captured constants inside the scan
-    body trigger a pathological XLA constant-folding path (~3 min) on TPU.
-    Scan unroll > 1 also explodes compile time on TPU (~4 min at unroll=4 even
-    for tiny shapes), so the default is 1.
+    position i.  See module docstring for the layout argument.
     """
-    B, Rmax = np.shape(reads)
-    lane = np.broadcast_to(np.arange(Rmax + 1, dtype=np.int32), (B, Rmax + 1))
     return _pairhmm_jit(
         jnp.asarray(haps), jnp.asarray(hap_lens), jnp.asarray(reads),
         jnp.asarray(read_lens), jnp.asarray(quals), jnp.asarray(ins_quals),
-        jnp.asarray(del_quals), jnp.asarray(gcps), jnp.asarray(lane), unroll,
-    )
+        jnp.asarray(del_quals), jnp.asarray(gcps))
 
 
-@functools.partial(jax.jit, static_argnames=("unroll",))
-def _pairhmm_jit(haps, hap_lens, reads, read_lens, quals, ins_quals,
-                 del_quals, gcps, lane, unroll):
+def _wavefront(haps, hap_lens, reads, read_lens, quals, ins_quals,
+               del_quals, gcps):
+    """Traceable body of pairhmm_forward_batch (also the plain-JAX device
+    implementation in ops.pairhmm_device)."""
     B, Rmax = reads.shape
     Hmax = haps.shape[1]
     f32 = jnp.float32
+    lane = jnp.arange(Rmax + 1, dtype=jnp.int32)[None, :]
+    # rows past each read's end get zero coefficients: their state stays
+    # zero and cannot pin the renormalisation peak
+    ok = ((lane >= 1) & (lane <= read_lens[:, None]))
 
     q = quals.astype(f32)
     eps = jnp.power(10.0, q / -10.0)
@@ -160,7 +157,7 @@ def _pairhmm_jit(haps, hap_lens, reads, read_lens, quals, ins_quals,
     eps_d = jnp.power(10.0, del_quals.astype(f32) / -10.0)
     eps_g = jnp.power(10.0, gcps.astype(f32) / -10.0)
     # [B, Rmax+1] transition prob lane-constants, position 0 unused (boundary row)
-    pad1 = lambda x: jnp.pad(x, ((0, 0), (1, 0)))
+    pad1 = lambda x: jnp.where(ok, jnp.pad(x, ((0, 0), (1, 0))), 0.0)
     t_mm = pad1(1.0 - jnp.minimum(1.0, eps_i + eps_d))
     t_im = pad1(1.0 - eps_g)
     t_mi = pad1(eps_i)
@@ -171,7 +168,7 @@ def _pairhmm_jit(haps, hap_lens, reads, read_lens, quals, ins_quals,
     p_mis = pad1(mis_p)
     read_pad = jnp.pad(reads, ((0, 0), (1, 0)))          # [B, Rmax+1]
 
-    boundary = (lane == 0)
+    boundary = jnp.broadcast_to(lane == 0, (B, Rmax + 1))
     is_end_row = lane == read_lens[:, None]              # the final read row per pair
 
     # Initial boundary value: D[0, j] = 1 / hap_len (scale-free; rescaling
@@ -240,16 +237,22 @@ def _pairhmm_jit(haps, hap_lens, reads, read_lens, quals, ins_quals,
     hap_stream = jnp.take_along_axis(
         haps, jnp.clip(ds - 1, 0, Hmax - 1)[None, :].repeat(B, 0), axis=1
     ).T  # [nsteps-1, B]
-    carry, _ = jax.lax.scan(step, carry0, (ds, hap_stream), unroll=unroll)
+    carry, _ = jax.lax.scan(step, carry0, (ds, hap_stream))
     acc, log10_scale = carry[8], carry[9]
     total = jnp.sum(acc, axis=1)
     return jnp.log10(jnp.maximum(total, jnp.finfo(f32).tiny)) + log10_scale
+
+
+_pairhmm_jit = jax.jit(_wavefront)
 
 
 # Below this log10 the f32 device kernels may have flushed deep DP cells
 # (single per-diagonal scale cannot span >38 decades); mirror GKL's
 # f32->f64 escalation by recomputing those pairs exactly on the host.
 F32_SUSPECT_LOG10 = -28.0
+#: device results this process recomputed in f64 (pairs checked, pairs
+#: escalated): the share of the device path's work the host redoes
+ESCALATIONS = {"checked": 0, "escalated": 0}
 
 
 def pairhmm_forward_checked(results, pairs):
@@ -266,6 +269,8 @@ def pairhmm_forward_checked(results, pairs):
     # pad block aliased by a degenerate input) — recompute them exactly
     suspect = np.nonzero((results <= F32_SUSPECT_LOG10) | (results > 0.0)
                          | ~np.isfinite(results))[0]
+    ESCALATIONS["checked"] += results.size
+    ESCALATIONS["escalated"] += suspect.size
     if suspect.size:
         # recompute the whole suspect set through the threaded native f64
         # batch kernel; the per-pair numpy DP is the fallback only

@@ -1,31 +1,17 @@
-"""Device-mesh sharding for batched region evaluation.
+"""The process-wide device mesh.
 
 The reference scales with shared-memory thread pools (rayon par_iter over
 contigs/chunks/regions, /root/reference/src/haplotype/haplotype_caller_engine.rs:443-465,
-assembly_region_walker.rs:139-141) and reduces per-chunk results with
-fold/reduce (:599-619).  The TPU-native equivalent: pair batches are sharded
-over a 1-D data axis of a jax.sharding Mesh; per-pair likelihood evaluation is
-embarrassingly parallel, and the (samples x samples) comparable-base /depth
-matrices reduce with psum over ICI.
-
-``region_batch_step`` is the multi-chip unit of work: PALLAS pair-HMM
-likelihoods for a sharded batch of (read, hap) pairs plus a globally-psum'd
-depth reduction — the same compute/communication shape the full calling
-pipeline uses (calling.likelihoods routes production batches through
-pairhmm_forward_sharded whenever an active mesh is configured).
+assembly_region_walker.rs:139-141).  Here a 1-D jax.sharding Mesh over the
+visible devices carries two things: pair-HMM dispatches round-robin over its
+devices (calling.likelihoods), and the activity chain shards its position
+axis over it (parallel.pipeline).
 """
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import jax
-import jax.numpy as jnp
-from jax.sharding import Mesh, PartitionSpec as P
-# jax.shard_map (v0.8) enforces varying-axis typing on scan carries;
-# the experimental entry point with check_rep=False accepts replicated
-# closure constants inside the shard (what the EM scan uses).
-from jax.experimental.shard_map import shard_map
+from jax.sharding import Mesh
 
 
 def make_mesh(devices=None, axis_name: str = "data") -> Mesh:
@@ -67,65 +53,12 @@ def configure_mesh(devices: str | int | None = "auto") -> Mesh | None:
     return mesh
 
 
-def region_batch_step(mesh: Mesh, axis_name: str = "data",
-                      n_samples: int = 8, interpret: bool = None):
-    """The multi-chip unit of work: PALLAS pair-HMM likelihoods for a batch
-    of (read, hap) pairs with the B_SLAB axis sharded over the mesh (one
-    slab per chip per dispatch — the exact single-chip compile shape), plus
-    a psum'd [samples, positions] depth reduction mirroring the reference's
-    rayon fold over chunk depth arrays (haplotype_caller_engine.rs:599-619).
-
-    ``interpret`` defaults to True on the CPU backend (the virtual-device
-    dryrun) and False on real chips."""
-    n = mesh.devices.size
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
-
-    @functools.partial(
-        shard_map, mesh=mesh, check_rep=False,
-        in_specs=(P(axis_name), P(axis_name)), out_specs=P(),
-    )
-    def depth_step(sample_ids, depths):
-        onehot = jax.nn.one_hot(sample_ids, n_samples, dtype=depths.dtype)
-        local = jnp.einsum("bs,bp->sp", onehot, depths)
-        return jax.lax.psum(local, axis_name)
-
-    depth_jit = jax.jit(depth_step)
-
-    def step(haps, hap_lens, reads, read_lens, quals, iq, dq, gcp,
-             sample_ids, depths):
-        from lorikeet_tpu.ops.pairhmm_pallas import (
-            pack_pallas_inputs, pairhmm_forward_sharded,
-        )
-        slabs, nchunks, B = pack_pallas_inputs(
-            haps, hap_lens, reads, read_lens, quals, iq, dq, gcp)
-        lk = pairhmm_forward_sharded(slabs, nchunks, B, mesh, axis_name,
-                                     interpret=interpret)
-        npairs = len(sample_ids)
-        pad = -(-npairs // n) * n
-        sid = np.zeros(pad, np.int32)
-        sid[:npairs] = sample_ids
-        dep = np.zeros((pad,) + tuple(np.asarray(depths).shape[1:]),
-                       np.float32)
-        dep[:npairs] = depths
-        total = depth_jit(jnp.asarray(sid), jnp.asarray(dep))
-        return lk, total
-
-    return step
-
-
-def demo_inputs(n_pairs: int, n_samples: int = 2, R: int = 16, H: int = 32,
-                seed: int = 0):
-    """Tiny synthetic sharded-step inputs (for dry runs and tests)."""
+def demo_pairs(n_pairs: int, R: int = 16, H: int = 32, seed: int = 0):
+    """Tiny synthetic (hap, read, q, iq, dq, gcp) pairs (dry runs, tests)."""
     rng = np.random.default_rng(seed)
     bases = np.frombuffer(b"ACGT", np.uint8)
     haps = bases[rng.integers(0, 4, (n_pairs, H))]
-    reads = np.stack([h[:R] for h in haps])
-    return (
-        haps, np.full(n_pairs, H, np.int32),
-        reads, np.full(n_pairs, R, np.int32),
-        np.full((n_pairs, R), 30, np.uint8), np.full((n_pairs, R), 45, np.uint8),
-        np.full((n_pairs, R), 45, np.uint8), np.full((n_pairs, R), 10, np.uint8),
-        rng.integers(0, n_samples, n_pairs).astype(np.int32),
-        rng.random((n_pairs, 8), np.float32),
-    )
+    q = np.full(R, 30, np.uint8)
+    i45 = np.full(R, 45, np.uint8)
+    g10 = np.full(R, 10, np.uint8)
+    return [(h, np.ascontiguousarray(h[:R]), q, i45, i45, g10) for h in haps]

@@ -6,8 +6,8 @@ verbosity (bin/lorikeet.rs:403-427) plus an indicatif progress-bar tree
 (lorikeet_engine.rs:992-1072).  Here: stdlib logging with the same -v/-q
 level mapping, a ProgressTree that writes per-genome status lines to
 stderr, StageTimer accumulation surfaced in the results dict, and
-`jax.profiler.trace` when a profile directory is given (the TPU-native
-upgrade over the reference's nothing).
+`jax.profiler.trace` when a profile directory is given (the reference
+has no profiler hook).
 """
 from __future__ import annotations
 

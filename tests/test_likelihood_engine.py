@@ -6,6 +6,7 @@ from lorikeet_tpu.calling.likelihoods import (
     _pcr_error_cache, _repeat_length_at, prepare_read_for_hmm,
     repeat_lengths_vector,
 )
+from lorikeet_tpu import device
 from lorikeet_tpu.io.bam import BamRecord
 
 BASES = np.frombuffer(b"ACGT", np.uint8)
@@ -56,10 +57,10 @@ def test_prepare_read_quality_caps():
     assert iq[-1] == 45
 
 
-def test_cold_compile_routing_and_prewarm(monkeypatch):
-    """A cold pallas bucket routes this batch to the exact host kernel and
-    immediately kicks the bucket's background compile; a warm bucket is used
-    directly (eager-prewarm dispatch — no cumulative-cells gate)."""
+def test_route_follows_backend_and_pins(monkeypatch):
+    """use_pallas=None follows lorikeet_tpu.device.pairhmm_route (the CPU
+    backend routes to the host kernel); True pins the device pair-HMM (its
+    plain-JAX implementation here) with no host fallback; both agree."""
     import lorikeet_tpu.calling.likelihoods as L
 
     rng = np.random.default_rng(3)
@@ -69,38 +70,33 @@ def test_cold_compile_routing_and_prewarm(monkeypatch):
     q = np.full(20, 30, np.uint8)
     pairs = [(hap, read, q, q, q, np.full(20, 10, np.uint8))] * 3
 
-    monkeypatch.setattr(L, "_PALLAS_WARM_BUCKETS", set())
-    monkeypatch.setattr(L, "_prewarm_threads", {})
-    prewarmed = []
-    monkeypatch.setattr(L, "_prewarm_bucket", prewarmed.append)
-
-    # cold bucket: host path AND the compile thread starts right away
-    out_cold = L.compute_pair_likelihoods(pairs, use_pallas=True)
+    monkeypatch.setattr(L, "DISPATCH_COUNTS",
+                        {"device": 0, "host": 0, "remote": 0,
+                         "long_read_host": 0})
+    out_auto = L.compute_pair_likelihoods(pairs)
+    assert L.DISPATCH_COUNTS["host"] == 1 and L.DISPATCH_COUNTS["device"] == 0
+    out_dev = L.compute_pair_likelihoods(pairs, use_pallas=True)
+    assert L.DISPATCH_COUNTS["device"] == 1
     out_host = L.compute_pair_likelihoods(pairs, use_pallas=False)
-    np.testing.assert_allclose(out_cold, out_host)
-    for t in list(L._prewarm_threads.values()):
-        t.join(5)
-    assert prewarmed == [L._pallas_bucket(pairs)]
-    # a second cold batch does not restart the landed bucket thread
-    prewarmed.clear()
-    monkeypatch.setattr(L, "_PALLAS_WARM_BUCKETS",
-                        {L._pallas_bucket(pairs)})
-    L.compute_pair_likelihoods(pairs, use_pallas=False)
-    assert not prewarmed
+    assert L.DISPATCH_COUNTS["host"] == 2
+    np.testing.assert_allclose(out_auto, out_host)
+    np.testing.assert_allclose(out_dev, out_host, rtol=0, atol=1e-5)
 
 
-def test_lane_fit_bucket_geometry():
-    """Buckets are 32k-1 so Rpad = roundup(Rmax+1, 128) never spills a
-    short read past the 128-lane boundary."""
-    from lorikeet_tpu.calling.likelihoods import lane_fit_bucket
-    assert lane_fit_bucket(100) == 127          # 100bp read -> Rpad 128
-    assert lane_fit_bucket(127) == 127
-    assert lane_fit_bucket(128) == 159          # -> Rpad 256
-    assert lane_fit_bucket(31) == 31
-    assert lane_fit_bucket(1) == 31
-    for r in (1, 31, 32, 96, 100, 127, 128, 151, 250):
-        b = lane_fit_bucket(r)
-        assert b >= r and (b + 1) % 32 == 0
+def test_read_bucket_geometry():
+    """The read axis pads to 32 lanes x rows-per-lane of a kernel
+    instantiation; reads past MAX_READ_LEN have no bucket."""
+    from lorikeet_tpu.ops.pairhmm_device import (
+        MAX_READ_LEN, ROWS_PER_LANE, read_bucket,
+    )
+    assert read_bucket(100) == 128
+    assert read_bucket(150) == 160
+    assert read_bucket(151) == 160
+    assert read_bucket(250) == 256
+    for r in (1, 31, 32, 96, 100, 127, 128, 151, 250, 300, MAX_READ_LEN):
+        b = read_bucket(r)
+        assert b >= r and b % 32 == 0 and b // 32 in ROWS_PER_LANE
+    assert MAX_READ_LEN == 32 * max(ROWS_PER_LANE)
 
 
 def test_repeat_lengths_native_matches_numpy():
@@ -161,7 +157,7 @@ def test_pcr_indel_model_knob():
 def test_adaptive_router_cost_model(monkeypatch):
     """The device-vs-host router picks the cheaper side from the measured
     rates, explores the losing side every 16th batch, and honors the
-    LORIKEET_PALLAS_ROUTE override."""
+    LORIKEET_PAIRHMM_ROUTE override."""
     import lorikeet_tpu.calling.likelihoods as L
 
     rng = np.random.default_rng(0)
@@ -172,20 +168,20 @@ def test_adaptive_router_cost_model(monkeypatch):
     pairs = [(hap, read, q, q, q, np.full(100, 10, np.uint8))] * 50
 
     monkeypatch.setattr(L, "_PERF", {"host_cps": None, "dev_bps": None,
-                                     "dev_lat": 0.05, "n_batch": 0})
-    monkeypatch.setattr(L, "_ROUTE_MODE", "auto")
+                                     "n_batch": 0})
+    monkeypatch.setenv("LORIKEET_PAIRHMM_ROUTE", "auto")
     # no data for either side: host first (to learn), then device
     assert L._route_device(pairs) is False
     L._PERF["host_cps"] = 1e9
     assert L._route_device(pairs) is True       # dev side still unknown
 
-    # tunnel-like rates: host 1 Gcells/s, device 27 MB/s -> host wins
-    L._PERF["dev_bps"] = 27e6
+    # a slow device: host 1 Gcells/s (1.5 ms), device 100 kB/s over the
+    # batch's ~1.2 kB grouped layout (12 ms) -> host wins
+    L._PERF["dev_bps"] = 1e5
     assert L._route_device(pairs) is False
-    # PCIe-like rates: device 16 GB/s with a slow host -> device wins
+    # a fast device: 16 GB/s against a slow host -> device wins
     L._PERF["host_cps"] = 5e7
     L._PERF["dev_bps"] = 16e9
-    L._PERF["dev_lat"] = 0.001
     assert L._route_device(pairs) is True
 
     # exploration: the 16th batch flips the decision
@@ -193,7 +189,38 @@ def test_adaptive_router_cost_model(monkeypatch):
     assert L._route_device(pairs) is False      # flipped from device
 
     # hard overrides
-    monkeypatch.setattr(L, "_ROUTE_MODE", "host")
+    monkeypatch.setenv("LORIKEET_PAIRHMM_ROUTE", "host")
     assert L._route_device(pairs) is False
-    monkeypatch.setattr(L, "_ROUTE_MODE", "device")
+    monkeypatch.setenv("LORIKEET_PAIRHMM_ROUTE", "device")
     assert L._route_device(pairs) is True
+
+
+def test_router_skips_cold_shape_samples(monkeypatch):
+    """A device dispatch that meets its shapes for the first time (build,
+    registration, compile) gives the router no rate sample; the next one
+    with the same shapes does."""
+    import lorikeet_tpu.calling.likelihoods as L
+
+    rng = np.random.default_rng(1)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    hap = bases[rng.integers(0, 4, 120)]
+    read = hap[10:60].copy()
+    q = np.full(50, 30, np.uint8)
+    pairs = [(hap, read, q, q, q, np.full(50, 10, np.uint8))] * 4
+
+    monkeypatch.setattr(L, "_PERF", {"host_cps": None, "dev_bps": None,
+                                     "n_batch": 0})
+    monkeypatch.setattr(L, "_WARM_SHAPES", set())
+    monkeypatch.setattr(device, "device_impl",
+                        lambda platform=None: "xla")
+    L.compute_pair_likelihoods(pairs, use_pallas=True)
+    assert L._PERF["dev_bps"] is None and len(L._WARM_SHAPES) == 1
+    L.compute_pair_likelihoods(pairs, use_pallas=True)
+    assert L._PERF["dev_bps"] > 0 and L._PERF["dev_bps_n"] == 1
+    # another implementation is another program: cold again
+    monkeypatch.setattr(device, "device_impl",
+                        lambda platform=None: "cuda")
+    import lorikeet_tpu.ops.pairhmm_device as D
+    monkeypatch.setitem(D.IMPLS, "cuda", D.forward_xla)
+    L.compute_pair_likelihoods(pairs, use_pallas=True)
+    assert L._PERF["dev_bps_n"] == 1 and len(L._WARM_SHAPES) == 2

@@ -7,7 +7,7 @@ import pytest
 from lorikeet_tpu.parallel.pipeline import (
     active_probabilities_jax, sharded_activity_step,
 )
-from lorikeet_tpu.parallel.sharding import make_mesh, region_batch_step, demo_inputs
+from lorikeet_tpu.parallel.sharding import make_mesh
 from lorikeet_tpu.models.activity import active_probabilities, band_pass_smooth
 
 
@@ -47,20 +47,6 @@ def test_sharded_activity_matches_unsharded(mesh):
     assert np.allclose(np.asarray(depth_totals), depths.sum(axis=1))
     # the planted active site survives smoothing at the right position
     assert smoothed[700] == smoothed.max()
-
-
-def test_region_batch_step_depth_psum(mesh):
-    step = region_batch_step(mesh, n_samples=3)
-    args = demo_inputs(n_pairs=64, n_samples=3)
-    lk, depth_total = step(*args)
-    assert lk.shape == (64,)
-    assert np.all(np.asarray(lk) <= 0)
-    # psum'd depth equals the host-side reduction
-    sample_ids, depths = args[8], args[9]
-    expect = np.zeros((3, depths.shape[1]), np.float32)
-    for sid, row in zip(sample_ids, depths):
-        expect[sid] += row
-    assert np.allclose(np.asarray(depth_total), expect, rtol=1e-5)
 
 
 def test_host_shard_round_robin_partition():

@@ -1,6 +1,7 @@
 """Persistent span-worker pool (parallel.pool): identical results to the
 serial path, reuse across genomes, and the parent device-service RPC
-(exercised on CPU with forced remote routing)."""
+(exercised on CPU with forced remote routing), whose failures reach the
+parent."""
 import os
 import tempfile
 
@@ -73,84 +74,13 @@ def test_pool_reused_across_genomes():
         assert _key(res.calls) == _key(serial.calls)
 
 
-def _fake_device(monkeypatch, fail_after=None):
-    """Patch the service's device seam (enqueue_grouped_jobs/readback)
-    with a host implementation that DECODES the shipped jobs — wire
-    nibbles, qual codebook, block tables — exactly as the chip would,
-    then computes each block row with the exact f64 kernel.  This makes
-    the pool RPC tests a conformance check of the whole job protocol."""
-    import lorikeet_tpu.ops.pairhmm_pallas as P
-    from lorikeet_tpu.ops.pairhmm import pairhmm_forward_np
-    from lorikeet_tpu.ops.pairhmm_native import pairhmm_forward_native_batch
-
-    def decode_wire(payload):
-        qidx, base_nib, hap_nib, cb, sym_tab, lens = payload
-
-        def unnib(pk):
-            lo = pk & 0xF
-            hi = pk >> 4
-            return np.stack([lo, hi], axis=-1).reshape(pk.shape[0], -1)
-
-        rdp = sym_tab[unnib(base_nib)]
-        hap_u8 = sym_tab[unnib(hap_nib)]
-        v = cb[qidx.astype(np.int64)]
-        return ((v & 0xFF).astype(np.uint8),
-                ((v >> 8) & 0xFF).astype(np.uint8),
-                ((v >> 16) & 0xFF).astype(np.uint8),
-                ((v >> 24) & 0xFF).astype(np.uint8),
-                rdp, hap_u8, lens)
-
-    calls = {"n": 0}
-
-    def fake_enqueue(jobs, nchunks, block_b=None,
-                     interpret=False):
-        calls["n"] += 1
-        if fail_after is not None and calls["n"] > fail_after:
-            raise RuntimeError("simulated agent crash on deep enqueue")
-        outs = []
-        for tables, mode, payload in jobs:
-            tile_tab, hap_tab, hoff_tab, hlen_tab = tables
-            planes = decode_wire(payload) if mode == "wire" else payload
-            q, iq, dq, gq, rdp, hap_u8, lens = planes
-            bb = P.vmem_safe_block(
-                q.shape[1], block_b or P.GROUP_BLOCK_B)
-            nblocks = len(tile_tab)
-            pairs = []
-            for b in range(nblocks):
-                t = int(tile_tab[b])
-                hrow = int(hap_tab[b]) * 8 + int(hoff_tab[b])
-                hlen = int(hlen_tab[b])
-                for r_off in range(bb):
-                    r = t * bb + r_off
-                    rl = int(lens[r, 0])
-                    pairs.append((hap_u8[hrow][:hlen], rdp[r][1:1 + rl],
-                                  q[r][1:1 + rl], iq[r][1:1 + rl],
-                                  dq[r][1:1 + rl], gq[r][1:1 + rl]))
-            vals = pairhmm_forward_native_batch(pairs)
-            if vals is None:
-                vals = np.array([pairhmm_forward_np(*p) for p in pairs])
-            outs.append(np.asarray(vals, np.float64).reshape(-1, 1))
-        return outs
-
-    monkeypatch.setattr(P, "enqueue_grouped_jobs", fake_enqueue)
-    return calls
-
-
 def test_pool_device_service_rpc(monkeypatch):
     """Force every worker batch through the parent service (remote routing
-    pinned) — results must match the serial host path exactly.  The
-    device seam is replaced by a host decoder of the shipped jobs (see
-    _fake_device), so the full worker-pack -> RPC -> decode -> compute ->
-    flat-reply -> out_pos-map -> checked-validate chain runs end to end."""
+    pinned): workers pack grouped jobs, the parent runs the device
+    pair-HMM (its plain-JAX implementation on this CPU backend) and replies
+    per-pair values.  Results match the serial host path."""
     monkeypatch.setenv("LORIKEET_REMOTE_ROUTE", "remote")
     import lorikeet_tpu.calling.likelihoods as L
-
-    class _AllWarm(set):
-        def __contains__(self, item):
-            return True
-
-    _fake_device(monkeypatch)
-    monkeypatch.setattr(L, "_PALLAS_WARM_BUCKETS", _AllWarm())
     L.DISPATCH_COUNTS["device"] = 0
     with tempfile.TemporaryDirectory() as tmp:
         fasta, bams, truth = _dataset(tmp, kbp=80)
@@ -166,69 +96,39 @@ def test_pool_device_service_rpc(monkeypatch):
         assert L.DISPATCH_COUNTS["device"] > 0   # service really dispatched
 
 
-def test_service_inflight_probe(monkeypatch):
-    """The device service probes pipeline depth once after its first clean
-    batch: two same-shape job enqueues without readback.  Success raises
-    the in-flight limit to 2 (recorded in PROBED_INFLIGHT)."""
+def _service_failure(monkeypatch, where):
+    """Break the service's device seam at ``where`` ("enqueue_jobs" or
+    "readback") and run a pooled call: the error must reach the parent."""
     monkeypatch.setenv("LORIKEET_REMOTE_ROUTE", "remote")
-    import lorikeet_tpu.calling.likelihoods as L
+    import lorikeet_tpu.ops.pairhmm_device as D
 
-    class _AllWarm(set):
-        def __contains__(self, item):
-            return True
+    def broken(*args, **kwargs):
+        raise RuntimeError(f"simulated device failure in {where}")
 
-    _fake_device(monkeypatch)
-    monkeypatch.setattr(L, "_PALLAS_WARM_BUCKETS", _AllWarm())
+    monkeypatch.setattr(D, where, broken)
     with tempfile.TemporaryDirectory() as tmp:
         fasta, bams, truth = _dataset(tmp, kbp=80)
         cfg = CallerConfig(use_pallas=False, threads=2)
         fr = FastaReader(fasta)
         readers = [open_bam(p) for p in bams]
-        serial = call_contig(fr, readers, "contig1", cfg,
-                             HaplotypeCallerEngine(cfg))
         pool = pool_mod.get_pool(fasta, bams, cfg, 2, device_service=True)
-        pooled = call_contig(fr, readers, "contig1", cfg,
-                             HaplotypeCallerEngine(cfg), pool=pool)
-        assert _key(pooled.calls) == _key(serial.calls)
-        # the probe runs asynchronously after the first reply: poll
-        import time
-        for _ in range(400):
-            if pool_mod.PROBED_INFLIGHT == 2:
-                break
-            time.sleep(0.05)
-        assert pool_mod.PROBED_INFLIGHT == 2        # probe ran and passed
+        with pytest.raises(RuntimeError) as err:
+            call_contig(fr, readers, "contig1", cfg,
+                        HaplotypeCallerEngine(cfg), pool=pool)
+    msg = str(err.value)
+    assert "span worker failed" in msg and "device service failed" in msg
+    assert f"simulated device failure in {where}" in msg
 
 
-def test_service_inflight_probe_failure_pins_depth(monkeypatch):
-    """A probe failure pins depth 1 and retires the chip; every later
-    batch bounces to the worker's local kernel — results stay correct."""
-    monkeypatch.setenv("LORIKEET_REMOTE_ROUTE", "remote")
-    import lorikeet_tpu.calling.likelihoods as L
+def test_service_launch_error_reaches_parent(monkeypatch):
+    """A device launch failure is not bounced to the worker's host
+    kernel: the run fails in the parent."""
+    _service_failure(monkeypatch, "enqueue_jobs")
 
-    class _AllWarm(set):
-        def __contains__(self, item):
-            return True
 
-    calls = _fake_device(monkeypatch, fail_after=1)
-    monkeypatch.setattr(L, "_PALLAS_WARM_BUCKETS", _AllWarm())
-    with tempfile.TemporaryDirectory() as tmp:
-        fasta, bams, truth = _dataset(tmp, kbp=80)
-        cfg = CallerConfig(use_pallas=False, threads=2)
-        fr = FastaReader(fasta)
-        readers = [open_bam(p) for p in bams]
-        serial = call_contig(fr, readers, "contig1", cfg,
-                             HaplotypeCallerEngine(cfg))
-        pool = pool_mod.get_pool(fasta, bams, cfg, 2, device_service=True)
-        pooled = call_contig(fr, readers, "contig1", cfg,
-                             HaplotypeCallerEngine(cfg), pool=pool)
-        assert _key(pooled.calls) == _key(serial.calls)  # bounced local
-        import time
-        for _ in range(400):                 # wait until the probe has run
-            if calls["n"] >= 2:
-                break
-            time.sleep(0.05)
-        time.sleep(0.2)
-        assert pool_mod.PROBED_INFLIGHT == 1
+def test_service_readback_error_reaches_parent(monkeypatch):
+    """A failure while reading results back fails the run the same way."""
+    _service_failure(monkeypatch, "readback")
 
 
 def test_pool_survives_worker_kill():
